@@ -1,7 +1,7 @@
 // Single-core baseline engine: a faithful stand-in for the Rust reference's
 // architecture (SURVEY.md §3.1), used as the measured denominator of the
-// ">=20x one TPU chip vs single-core" target (BASELINE.json north_star;
-// the Rust toolchain is unavailable in this environment, SURVEY.md §7.7).
+// engine-vs-single-core comparison (BASELINE.json north_star; the Rust
+// toolchain is not available to the build, SURVEY.md §7.7).
 //
 // Architecture mirrors the reference deliberately:
 //   for each segment:            (tantivy Searcher::segment_readers)

@@ -1,7 +1,7 @@
 """Quickstart: build an index, run aggregations, use msearch batching.
 
 Run from the repo root: python examples/quickstart.py
-(CPU or TPU — the engine picks whatever JAX backend is active.)"""
+(CPU or GPU — the engine picks whatever JAX backend is active.)"""
 
 import os
 import sys

@@ -1,6 +1,6 @@
 // Native ingestion kernels for tantivy_aggregations_tpu.
 //
-// The TPU consumes immutable columns; building them is host work, and its
+// The device consumes immutable columns; building them is host work, and its
 // hot spot is term-dictionary construction + ordinal encoding for
 // keyword/text fields (SURVEY.md §2.2 T3/T5: tantivy's FST term dict and
 // fast-field serialization are native Rust — this is the rebuild's native

@@ -1,19 +1,19 @@
-"""tantivy_aggregations_tpu — a TPU-native index-and-aggregate engine.
+"""tantivy_aggregations_tpu — an accelerator index-and-aggregate engine in JAX.
 
 A from-scratch rebuild of the capability surface of the Rust crate
 ``anti-social/tantivy-aggregations`` (Elasticsearch-style aggregations over a
-tantivy-like segment index), re-designed for TPU hardware:
+tantivy-like segment index), re-designed as device programs:
 
-- Fast-field columns are HBM-resident dense arrays (int64 order-preserving
+- Fast-field columns are device-resident dense arrays (int64 order-preserving
   "mono" domain + CSR for multi-valued fields).
 - Query matching is a vectorized docid-bitmask materializer instead of a
   per-doc postings seek loop.
 - The aggregation walk (count/sum/min/max/avg/percentiles/histogram/terms
   with nested sub-aggs, filter/post-filter) compiles to fused masked
-  segmented reductions under ``jax.jit`` (Pallas kernels for the hot paths).
+  segmented reductions under ``jax.jit``.
 - Multi-segment indexes are concatenated on one doc axis; sharded indexes
   shard that axis over a ``jax.sharding.Mesh`` and merge fruits with
-  ``psum``-style collectives over ICI.
+  ``psum``-style collectives.
 
 Exactness contract: every aggregate the engine returns is *exact* (integer
 aggregates trivially; float64 sums via order-independent fixed-point limb
@@ -22,7 +22,7 @@ results are bit-identical to the in-repo sequential oracle regardless of
 execution order, segmentation, or sharding. See SURVEY.md §A.
 
 Reference parity map (reference = anti-social/tantivy-aggregations; the
-/root/reference mount was empty during the survey, so citations are to
+reference source was not available during the survey, so citations are to
 SURVEY.md sections rather than file:line — see SURVEY.md provenance notice):
 - public API constructors / AggSearcher      -> aggs/ir.py, searcher.py   [SURVEY §2.1 C1]
 - Agg/PreparedAgg/SegmentAgg trait triple    -> aggs/ir.py + aggs/compile.py [C2]
@@ -35,8 +35,8 @@ SURVEY.md sections rather than file:line — see SURVEY.md provenance notice):
 # trace-time XLA ops (reductions, cumsums, top-k keys); every device-resident
 # column is int32/int8. Those segments are traced under scoped
 # `jax.enable_x64(True)` contexts inside the compiled programs, so the global
-# x64 flag stays OFF — which keeps Pallas/Mosaic kernel lowering usable (it
-# rejects 64-bit types) and avoids int64 creep elsewhere.
+# x64 flag stays OFF: no array is silently widened to 64 bits (device
+# planes stay int32/int8 and every int64 is an explicit choice).
 
 from .schema import Schema, FieldType, Cardinality, SchemaBuilder  # noqa: E402
 from .index.index import Index  # noqa: E402

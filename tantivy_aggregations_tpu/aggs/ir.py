@@ -1,6 +1,6 @@
 """Aggregation-tree IR and user-facing constructor functions.
 
-TPU-native analog of the reference's `Agg` values and constructor functions
+Device analog of the reference's `Agg` values and constructor functions
 (SURVEY.md §2.1 C1/C2: `count_agg()`, `sum_agg_f64("price")`,
 `terms_agg_*(..., sub_aggs)`, `histogram_agg(...)`, `filter_agg(query, sub)`).
 Where the Rust crate composes sibling aggs as tuples, this engine composes

@@ -18,10 +18,9 @@ class EngineConfig:
     collect_stats: bool = False
     #: msearch group cap: same-shape queries per vmapped dispatch; multiple
     #: groups pipeline (device->host copies overlap later groups' compute).
-    #: 128 measured best on the v5e (re-swept after the Pallas/MXU prefix
-    #: work dropped per-query device time): the link's fixed per-round-trip
-    #: cost amortizes over the group; 64 -> 128 took the streams from
-    #: 0.41 -> 0.11 ms/q (count+sum) and 1.21 -> 1.08 ms/q (percentile mix)
+    #: Each group pays one dispatch and one device->host copy, so larger
+    #: groups amortize both; per-query row-axis state is capped separately
+    #: (Program.batch_cap)
     max_batch: int = 128
     #: dedup identical requests inside an msearch group (request-cache
     #: analog of Elasticsearch's shard request cache): a compiled program
@@ -29,11 +28,9 @@ class EngineConfig:
     #: compute once and fan the fruits out. Serving wins; benchmarks that
     #: want to measure raw compute throughput should turn it off.
     msearch_dedup: bool = True
-    #: fused Pallas metric kernels on the TPU backend (unsharded programs)
-    use_pallas: bool = True
     #: dense bucket counts/sums over STATIC bucket-id planes ride chunked
-    #: bf16 MXU matmuls (ops/reductions.py dense_bucket_*_mxu) instead of
-    #: per-query one-hot VPU work; exact by 7-bit piece construction
+    #: int8 matmuls (ops/reductions.py dense_bucket_*_mxu) instead of
+    #: per-query one-hot compare-reduce; exact by 7-bit piece construction
     dense_mxu: bool = True
     #: value-domain cube lowering (ops/cube.py): trees whose parameterized
     #: query chain lives on a small single-valued domain evaluate as exact
@@ -46,8 +43,6 @@ class EngineConfig:
     #: dynamic-slice row of a precomputed per-(value, 32-block)
     #: count/payload operand — no per-query row pass (bench c7's lever)
     use_member_ops: bool = True
-    #: run Pallas kernels in interpreter mode (CPU testing of kernel paths)
-    pallas_interpret: bool = False
 
     def validate(self) -> "EngineConfig":
         if self.dense_nb < 1:

@@ -1,6 +1,6 @@
 """Index: a set of immutable segments + schema, in RAM or on disk.
 
-TPU-native analog of tantivy's Index/meta.json (SURVEY.md §2.2 T2/T10).
+Device-engine analog of tantivy's Index/meta.json (SURVEY.md §2.2 T2/T10).
 `create_in_ram` is the test fixture path (the reference's RAM-directory
 equivalent, SURVEY.md §4); `create`/`open` persist segments to a directory —
 the engine's checkpoint/resume story (SURVEY.md §5).

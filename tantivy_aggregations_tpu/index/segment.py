@@ -1,6 +1,6 @@
 """Immutable segments and their on-disk column format.
 
-TPU-native analog of tantivy's segment + fast-field storage (SURVEY.md §2.2
+Device-engine analog of tantivy's segment + fast-field storage (SURVEY.md §2.2
 T2/T4/T5/T8/T10). A segment is a struct-of-arrays:
 
 - numeric single-valued field: `values` [max_doc] in the user dtype

@@ -1,10 +1,10 @@
 """IndexWriter: document ingestion and segment building.
 
-TPU-native analog of tantivy's IndexWriter (SURVEY.md §2.2 T3, §3.3): docs
+Device-engine analog of tantivy's IndexWriter (SURVEY.md §2.2 T3, §3.3): docs
 are buffered on the host, `commit()` serializes one immutable segment
 (columns + CSR + sorted term table) and applies pending deletes. Indexing is
-a host-side NumPy path — there is deliberately no on-TPU indexing; the TPU
-consumes immutable columns (SURVEY.md §2.2 T3 "Rebuild equivalent").
+a host-side NumPy path — there is deliberately no on-device indexing; the
+device consumes immutable columns (SURVEY.md §2.2 T3 "Rebuild equivalent").
 
 Two ingestion paths:
 - `add_document({field: value_or_list})` — per-doc, test/fixture friendly.

@@ -140,8 +140,7 @@ def extra_configs():
         # c9: the nested-selection device path — per-bucket percentiles
         # (slot_rank) under a terms agg. (top_hits under buckets exists and
         # is parity-tested, but its per-slot path is a full-row sort — not
-        # a sensible 10M-row benchmark per ops/reductions.py's measured
-        # sort pathology.)
+        # a sensible 10M-row benchmark.)
         (9, "c9_terms_nested_percentiles",
          RangeQuery("amount", lower=100, upper=9000, include_upper=True),
          {"t": terms_agg("status", size=4,

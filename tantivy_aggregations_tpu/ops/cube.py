@@ -24,9 +24,8 @@ query-independent: exact int64 host pre-aggregates (counts via bincount;
 sums via 13-bit-split float64 bincounts — each half-sum < 2^42 < 2^53, so
 the float accumulation is exact; min/max via ufunc.at), decomposed into
 7-bit int8 pieces. A query then costs one [Dprod] indicator eval plus one
-[B, Dprod] x [Dprod, K] s8 MXU matmul per msearch batch — MXU work that
-replaces the measured ~25ms issue-bound VPU plane pass per 64-query batch
-(ops/pallas_kernels.py notes).
+[B, Dprod] x [Dprod, K] s8 x s8 -> s32 matmul per msearch batch, in
+place of a pass over the row planes per query.
 
 Exactness: every piece is int8; a dot lane sums <= Dprod * 127 < 2^24
 terms in int32 (Dprod <= 2^17); recombination shifts in int64. The cube is
@@ -241,6 +240,28 @@ def split_rm(rm: np.ndarray):
     return hi, lo
 
 
+#: contracting-axis alignment of every cube dot. XLA:GPU (jax 0.9.0,
+#: H100) returns wrong batched s8 x s8 -> s32 products when the
+#: contracting size is not a multiple of 4 (measured: D in {2, 3, 5, 6, 7,
+#: 9, 17, 31, 33, 4097} wrong at B >= 2, doubled values; D = 5 is bench
+#: c2's status domain), while zero-padding D to a multiple of 128 was
+#: exact at every shape tried and faster at D = 100000. Zero rows add
+#: nothing to any dot, so the padding is exact by construction.
+DOT_ALIGN = 128
+
+
+def _align_rows(a, axis: int = 0):
+    """Zero-pad `a` along `axis` to a multiple of DOT_ALIGN (host or
+    traced arrays)."""
+    pad = (-a.shape[axis]) % DOT_ALIGN
+    if not pad:
+        return a
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, pad)
+    return (np.pad(a, widths) if isinstance(a, np.ndarray)
+            else jnp.pad(a, widths))
+
+
 def pack_groups(groups):
     """[(name, int64 [m] cells), ...] -> (int8 [Dprod, K] pieces, layout)
     where layout = [(name, m, npieces), ...] in column order."""
@@ -258,7 +279,7 @@ def pack_groups(groups):
         layout.append((name, a.shape[0], n))
     pieces = np.concatenate(cols, axis=1) if cols else \
         np.zeros((0, 0), np.int8)
-    return pieces, layout
+    return _align_rows(pieces), layout
 
 
 def pack_groups_sharded(groups):
@@ -284,7 +305,7 @@ def pack_groups_sharded(groups):
         layout.append((name, m, n))
     pieces = np.concatenate(cols, axis=2) if cols else \
         np.zeros((1, 0, 0), np.int8)
-    return pieces, layout
+    return _align_rows(pieces, 1), layout
 
 
 def recombine(dots, layout):
@@ -293,9 +314,9 @@ def recombine(dots, layout):
 
     Vectorized shift-sum on purpose: the scalar-loop form
     ``v = v + (sl[:, i] << (7 * i))`` MISCOMPILES under jit on this jax
-    build (0.9.0; XLA drops shifted terms data-dependently on both the
-    CPU and TPU backends — caught by a bit-identity gate, eager mode and
-    numpy agree). Do not rewrite as a Python accumulation loop."""
+    build (0.9.0; XLA drops shifted terms data-dependently, seen on the
+    CPU backend — caught by a bit-identity gate, eager mode and numpy
+    agree). Do not rewrite as a Python accumulation loop."""
     out = {}
     off = 0
     for name, m, n in layout:
@@ -310,7 +331,13 @@ def recombine(dots, layout):
 def cube_dots(ind8, pieces):
     """One s8 x s8 -> s32 matmul: [Dprod] . [Dprod, K]. Exact by dtype:
     lane sums <= Dprod * 127 < 2^24 (Dprod <= 2^17). Under vmap the batch
-    shares the static right operand ([B, Dprod] x [Dprod, K] on the MXU)."""
+    shares the static right operand ([B, Dprod] x [Dprod, K]). Both
+    operands are zero-padded to a DOT_ALIGN contracting size (operands
+    are built aligned, so only the indicator pads per call)."""
+    D = max(ind8.shape[-1], pieces.shape[0])
+    D += (-D) % DOT_ALIGN
+    ind8 = jnp.pad(ind8, (0, D - ind8.shape[-1]))
+    pieces = jnp.pad(pieces, ((0, D - pieces.shape[0]), (0, 0)))
     return jnp.einsum("d,dk->k", ind8, pieces,
                       preferred_element_type=I32)
 
@@ -351,7 +378,7 @@ def build_blockhist(cell_dev, Dprod: int, G: int):
     c2 = counts.reshape(NB, Dprod)
     d0 = (c2 & 127).astype(jnp.int8).T     # [Dprod, NB]
     d1 = (c2 >> 7).astype(jnp.int8).T
-    return jnp.concatenate([d0, d1], axis=1)  # [Dprod, 2*NB]
+    return _align_rows(jnp.concatenate([d0, d1], axis=1))  # [Dprod, 2*NB]
 
 
 def block_counts(ind8, hist2):
@@ -389,7 +416,7 @@ def build_slot_blockhist(cell_dev, slot_dev, ns: int, Dprod: int, G: int):
     c2 = counts.reshape(NB * ns, Dprod)
     d0 = (c2 & 127).astype(jnp.int8).T     # [Dprod, NB*ns]
     d1 = (c2 >> 7).astype(jnp.int8).T
-    return jnp.concatenate([d0, d1], axis=1)
+    return _align_rows(jnp.concatenate([d0, d1], axis=1))
 
 
 def slot_block_counts(ind8, hist2, ns: int):

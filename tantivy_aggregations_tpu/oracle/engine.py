@@ -2,7 +2,7 @@
 
 This is the stand-in for the (unbuildable, empty-mount) Rust reference: a
 straightforward per-segment NumPy implementation of every query and agg per
-SURVEY.md §A. The TPU engine's results must be **bit-identical** to this
+SURVEY.md §A. The device engine's results must be **bit-identical** to this
 oracle's — exact integer arithmetic and the shared harvest helpers in
 utils/exact.py make that achievable regardless of device execution order.
 
@@ -464,8 +464,7 @@ class OracleSearcher:
                              reverse=(direction == "desc"))
         else:
             sub = dict(agg.sub_aggs)[target]
-            vals = {k: self._run_agg_weighted(sub, refined_for(k))["value"]
-                    for k in keys_sorted}
+            vals = self._order_values(sub, per_seg_rows, ftype)
             present = [k for k in keys_sorted if vals[k] is not None]
             missing = [k for k in keys_sorted if vals[k] is None]
             present.sort(key=lambda k: vals[k],
@@ -481,6 +480,45 @@ class OracleSearcher:
                 b[name] = self._run_agg_weighted(sub, refined)
             out_buckets.append(b)
         return {"buckets": out_buckets, "sum_other_doc_count": int(sum_other)}
+
+    def _order_values(self, sub, per_seg_rows, ftype) -> dict:
+        """{bucket key: harvested order-metric value} for every key, from
+        ONE stable sort of each segment's (doc, key) rows: each key's docs
+        (with their occurrence multiplicities) feed the same
+        _metric_from_values as the per-bucket weighted evaluation, so the
+        values are identical to evaluating every bucket in full."""
+        sub_t = None if isinstance(sub, A.CountAgg) \
+            else self._field_type(sub.field)
+        parts = {}  # key -> [value arrays] (metric) or occurrence count
+        for seg, docs, keys in per_seg_rows:
+            if keys.size == 0:
+                continue
+            order = np.argsort(keys, kind="stable")
+            uk, starts = np.unique(keys[order], return_index=True)
+            ends = np.append(starts[1:], keys.size)
+            fd = None if sub_t is None else seg.fields[sub.field]
+            offs = (None if fd is None or fd.offsets is None
+                    else fd.offsets.astype(np.int64))
+            for k, s, e in zip(uk.tolist(), starts.tolist(), ends.tolist()):
+                kk = k if ftype.is_stringy else self._user_scalar(ftype, k)
+                if sub_t is None:
+                    parts[kk] = parts.get(kk, 0) + (e - s)
+                    continue
+                ud, c = np.unique(docs[order[s:e]], return_counts=True)
+                if offs is None:
+                    v = np.repeat(fd.values[ud], c)
+                else:  # every value row of each doc, once per occurrence
+                    n = offs[ud + 1] - offs[ud]
+                    first = np.repeat(offs[ud] - (np.cumsum(n) - n), n)
+                    rows = first + np.arange(int(n.sum()))
+                    v = np.repeat(fd.values[rows], np.repeat(c, n))
+                parts.setdefault(kk, []).append(v)
+        if sub_t is None:
+            return parts
+        empty = np.zeros(0, dtype=numeric_dtype(sub_t))
+        return {k: self._metric_from_values(
+                    sub, sub_t, np.concatenate(v) if v else empty)["value"]
+                for k, v in parts.items()}
 
     def _top_hits(self, agg: A.TopHitsAgg, per_seg) -> dict:
         if agg.sort_field is None:

@@ -1,7 +1,7 @@
 """Sharded (multi-chip) execution helpers.
 
 The reference has no distributed story (SURVEY.md §2.3: single process, a
-thread pool over segments at most). The TPU rebuild shards the concatenated
+thread pool over segments at most). This rebuild shards the concatenated
 doc axis over a 1-D `jax.sharding.Mesh` ("d") — data parallelism over docs:
 
 - columns are loaded shard-partitioned (value rows co-located with their
@@ -12,7 +12,7 @@ doc axis over a 1-D `jax.sharding.Mesh` ("d") — data parallelism over docs:
   all-gather + local reduce for min/max, and CROSS-SHARD BISECTION for
   order statistics (O(log span) scalar psums over per-shard value-sorted
   layouts — no all-gather, no resort; aggs/compile.py
-  `_bisect_select_values`). XLA lowers these to ICI collectives on pods.
+  `_bisect_select_values`). On GPUs XLA lowers these to NCCL collectives.
 
 `make_mesh` builds the mesh; pass it to `Index.searcher(mesh=...)`.
 """

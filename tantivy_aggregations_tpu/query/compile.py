@@ -358,7 +358,7 @@ def eval_mask(q, dindex, params, path, T, arrays, prefix="") -> jnp.ndarray:
             # dense per-position planes: plane index IS the token position,
             # so the phrase is an OR over start positions of ANDed per-plane
             # compares — doc-aligned, permutes like any plane (works under
-            # permuted views and inside the Pallas chain kernels)
+            # permuted views)
             K = len(col.multi_planes_host)
             m = jnp.zeros(T, dtype=bool)
             for p0 in range(0, K - n + 1):

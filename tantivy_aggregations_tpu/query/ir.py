@@ -1,4 +1,4 @@
-"""Query IR — the TPU-native analog of tantivy's Query/Weight/Scorer stack.
+"""Query IR — the device analog of tantivy's Query/Weight/Scorer stack.
 
 Where tantivy lowers a query to per-segment `Scorer` DocSet iterators
 (SURVEY.md §2.2 T6/T7), this engine lowers a query to a **mask program**: a
@@ -79,8 +79,8 @@ class PhraseQuery(Query):
     phrase is a SHIFTED AND over the ordinal plane (row r matches iff
     ord[r+j] == token_j for all j and row r+n-1 is the same doc) — or,
     for docs within the dense per-position planes, an OR over start
-    positions of per-plane compares (which also rides permuted views and
-    the Pallas chain kernels). Token ordinals are traced params: same
+    positions of per-plane compares (which also rides permuted views).
+    Token ordinals are traced params: same
     token COUNT never recompiles."""
 
     field: str
@@ -103,7 +103,7 @@ class TermSetQuery(Query):
     inclusive compare RUNS (adjacent integers merge), padded to a
     power-of-two run-slot count derived from len(values) — the slot count
     is the only structural component, so same-sized sets never recompile
-    and the runs ride the multi-plane and Pallas chain paths like ranges.
+    and the runs ride the multi-plane and permuted-view paths like ranges.
     Sets whose runs exceed 64 slots answer on the exact host path."""
 
     field: str

@@ -1,6 +1,6 @@
 """Schema: typed field definitions for the index.
 
-TPU-native analog of tantivy's schema subsystem (SURVEY.md §2.2 T1): fields
+Device-engine analog of tantivy's schema subsystem (SURVEY.md §2.2 T1): fields
 are typed (u64/i64/f64/date/keyword), flagged FAST for columnar storage, and
 carry a cardinality (single vs multi). In this engine every queryable field
 is also a fast field — queries are evaluated as vectorized column compares,

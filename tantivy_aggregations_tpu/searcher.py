@@ -122,7 +122,7 @@ class Searcher:
             staged = prog.stage(raw, aggs)
             import jax
             import numpy as np
-            np.asarray(jax.device_get(staged[0]))  # block: execute + link
+            np.asarray(jax.device_get(staged[0]))  # block: execute + copy
             st.wait_ms = t.lap()
             out = prog.finalize(raw, aggs, staged=staged)
             st.harvest_ms = t.lap()
@@ -136,12 +136,12 @@ class Searcher:
 
         Runs of consecutive requests sharing the same (query shape, agg
         shape) are vmapped into ONE device dispatch — column passes are
-        shared across the batch and the per-dispatch overhead of the device
-        link is paid once per group instead of once per query. Groups with
-        different shapes are dispatched asynchronously back-to-back, and
-        all device->host transfers are batched. (The reference is strictly
-        synchronous per query — SURVEY.md §3.1; this is the TPU-native
-        serving pattern.)"""
+        shared across the batch and the per-dispatch overhead is paid once
+        per group instead of once per query. Groups with different shapes
+        are dispatched asynchronously back-to-back, and all device->host
+        transfers are batched. (The reference is strictly synchronous per
+        query — SURVEY.md §3.1; this is the engine's batched serving
+        pattern.)"""
         submitted = self._submit_batch(requests)
         # phase 2: collect (transfers have been landing in the background)
         results = []

@@ -1,18 +1,18 @@
 """Exact, order-independent aggregation arithmetic.
 
 The reference (a sequential Rust collector, SURVEY.md §3.1) accumulates f64
-sums in left-to-right doc order. A TPU engine cannot (and should not) chase
-that iteration order; worse, f64 arithmetic on TPU is emulated double-double
-and not IEEE. This module makes "bit-identical results" achievable anyway by
-making every sum **exact**:
+sums in left-to-right doc order. A parallel device engine cannot (and should
+not) chase that iteration order: its reductions run in whatever order the
+compiled program picks. This module makes "bit-identical results"
+achievable anyway by making every sum **exact**:
 
 - Every addend (u64/i64/date value, or an f64 decomposed into
   sign * mantissa * 2^exp) is represented as a fixed-point integer and split
-  into 26-bit limbs. Limbs are accumulated in int64 (exact on TPU via XLA's
-  64-bit emulation). 26-bit limbs guarantee no int64 overflow for up to 2^37
+  into 26-bit limbs. Limbs are accumulated in int64 (exact integer
+  arithmetic on any backend). 26-bit limbs guarantee no int64 overflow for up to 2^37
   addends — far beyond any index this engine addresses per shard group.
 - Limb accumulators are order-independent (integer addition commutes), so
-  per-segment execution, grid re-tiling, or cross-chip psum over ICI all
+  per-segment execution, grid re-tiling, or cross-device psum all
   produce the same bits.
 - The final limb sums are recombined on the host with Python big ints and
   correctly rounded to f64 (via Fraction -> float, which CPython rounds

@@ -1,11 +1,12 @@
 """Order-preserving integer ("mono") domain for device-side numeric compute.
 
-TPU-native replacement for tantivy's monotonic u64 fast-field mapping
+Device replacement for tantivy's monotonic u64 fast-field mapping
 (SURVEY.md §2.2 T4): every numeric field type maps into **int64** such that
 the mapping is strictly order-preserving and invertible. All device-side
-comparisons, min/max, sorting, bucketing and range predicates run on int64
-(exact under XLA's 64-bit integer emulation on TPU); the inverse map back to
-user values happens only at host harvest.
+comparisons, min/max, sorting, bucketing and range predicates run on this
+domain (exact integer arithmetic; the device stores it as int32 offset
+planes, index/loader.py); the inverse map back to user values happens only
+at host harvest.
 
 Mappings (all order-preserving):
 - i64:  identity.

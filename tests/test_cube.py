@@ -1,6 +1,6 @@
 """Value-domain cube lowering (ops/cube.py): parameterized queries over
 small single-valued domains answer metrics/counts from [Dprod]-cell
-pre-aggregates via exact int8 MXU matmuls — no per-query row pass. Every
+pre-aggregates via exact int8 matmuls — no per-query row pass. Every
 result must stay bit-identical to the oracle and to the row formulation
 (use_cube=False), because the cube is an exact regrouping of the same
 integer addends (SURVEY.md §A invariants)."""
@@ -117,7 +117,7 @@ def test_cube_bit_identity(idx):
 
 def test_cube_msearch_batch(idx):
     """The vmapped msearch path shares the static [Dprod, K] operand across
-    the batch ([B, Dprod] x [Dprod, K] on the MXU)."""
+    the batch ([B, Dprod] x [Dprod, K])."""
     oracle = idx.oracle_searcher()
     s_on = idx.searcher(config=EngineConfig(use_cube=True))
     reqs = [(TermQuery("cat", c), AGGS) for c in "abcdefab"] + \
@@ -390,3 +390,28 @@ def test_cube_shards_lift_build_rows_bound(monkeypatch):
     assert s_mesh.agg_search(q, aggs) == oracle.agg_search(q, aggs)
     assert n_cube_sites(s_mesh) >= 3, \
         "per-shard builds must keep cubing past the global bound"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 9, 17, 33, 4097])
+def test_cube_dots_unaligned_contracting(D):
+    """Batched cube dots over contracting sizes that are not a multiple of
+    4 (the shapes XLA:GPU got wrong unpadded, bench c2's D=5 among them):
+    exact against an int64 host product, and pack_groups builds operands
+    whose contracting axis is already DOT_ALIGN-aligned."""
+    import jax
+    import jax.numpy as jnp
+    from tantivy_aggregations_tpu.ops import cube as cube_mod
+    rng = np.random.default_rng(D)
+    cells = rng.integers(-(2**20), 2**20, D)
+    pieces, layout = cube_mod.pack_groups([("s", cells)])
+    assert pieces.shape[0] % cube_mod.DOT_ALIGN == 0
+    assert not pieces[D:].any()
+    ind = (rng.random((8, D)) < 0.5).astype(np.int8)
+    dots = jax.jit(jax.vmap(cube_mod.cube_dots, in_axes=(0, None)))(
+        jnp.asarray(ind), jnp.asarray(pieces))
+    ref = ind.astype(np.int64) @ pieces[:D].astype(np.int64)
+    np.testing.assert_array_equal(np.asarray(dots, np.int64), ref)
+    with jax.enable_x64(True):
+        tot = jax.jit(lambda d: cube_mod.recombine(d, layout)["s"])(dots[0])
+    assert int(tot) == int((ind[0].astype(np.int64) * cells).sum())

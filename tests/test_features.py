@@ -180,20 +180,18 @@ def test_exists_query():
 
 
 def test_pallas_interpret_metrics_parity():
-    """Exercise the fused Pallas metric kernel (interpret mode on CPU)."""
+    """Root metrics (count/sum/min/max over a narrow plane) run as plain
+    XLA reductions — the fused metrics kernel they once had is gone —
+    with the int8 matmul limb sums on and off."""
     from fixtures import random_index
     idx = random_index(31, n_docs=300, n_segments=2, delete_frac=0.2)
     aggs = {"st": __import__("tantivy_aggregations_tpu").stats_agg("qty"),
             "sp": sum_agg("price"), "n": count_agg()}
-    cfg = EngineConfig(pallas_interpret=True)
-    for q in [MatchAllQuery(), RangeQuery("qty", lower=100, upper=800)]:
-        a = idx.searcher(config=cfg).agg_search(q, aggs)
-        b = idx.oracle_searcher().agg_search(q, aggs)
-        assert a == b
-    # confirm the kernel path was actually planned in
-    s = idx.searcher(config=cfg)
-    prog = s._program_for(MatchAllQuery(), aggs)
-    assert prog._pallas_ok
+    for cfg in (EngineConfig(), EngineConfig(dense_mxu=False)):
+        for q in [MatchAllQuery(), RangeQuery("qty", lower=100, upper=800)]:
+            a = idx.searcher(config=cfg).agg_search(q, aggs)
+            b = idx.oracle_searcher().agg_search(q, aggs)
+            assert a == b
 
 
 def test_epoch_invalidation_on_mutation():
@@ -287,17 +285,25 @@ def test_bool_should_is_scoring_hint_under_must():
 
 
 def test_pallas_fused_metrics_large_span_exact():
-    """ADVICE r1 (high): the 13-bit-split partial sums overflowed int32 for
-    narrow columns with span >= ~2^26. The block cap is now span-aware."""
+    """ADVICE r1 (high): 13-bit-split partial sums can overflow int32 for
+    narrow columns with span >= ~2^26. The plain XLA metric reductions
+    (ts_count / ts_sum_plane / masked min-max) stay exact there."""
+    import jax
     import jax.numpy as jnp
-    from tantivy_aggregations_tpu.ops import pallas_kernels as PK
+    from tantivy_aggregations_tpu.ops import reductions as R
+
+    def fused_metrics(mask, plane):
+        with jax.enable_x64(True):
+            return (R.ts_count(mask), R.ts_sum_plane(plane, mask),
+                    R.masked_min_i32(plane, mask),
+                    R.masked_max_i32(plane, mask))
+
     rng = np.random.default_rng(0)
     n = 262144
     vals = rng.integers(0, 2**30, n).astype(np.int32)
     mask = rng.random(n) < 0.7
-    cnt, tot, mn, mx = PK.fused_metrics(
-        jnp.asarray(mask), jnp.asarray(vals), interpret=True,
-        max_abs=2**30 - 1)
+    cnt, tot, mn, mx = jax.jit(fused_metrics)(jnp.asarray(mask),
+                                              jnp.asarray(vals))
     sel = vals[mask]
     assert int(cnt) == int(mask.sum())
     assert int(tot) == int(np.sum(sel, dtype=np.int64))
@@ -305,16 +311,16 @@ def test_pallas_fused_metrics_large_span_exact():
     assert int(mx) == int(sel.max())
     # signed limb-plane-style values (floor-shift negative high splits)
     svals = rng.integers(-(2**25), 2**25, n).astype(np.int32)
-    _, stot, smn, smx = PK.fused_metrics(
-        jnp.asarray(mask), jnp.asarray(svals), interpret=True)
+    _, stot, smn, smx = jax.jit(fused_metrics)(jnp.asarray(mask),
+                                               jnp.asarray(svals))
     ssel = svals[mask]
     assert int(stot) == int(np.sum(ssel, dtype=np.int64))
     assert int(smn) == int(ssel.min()) and int(smx) == int(ssel.max())
 
 
 def test_pallas_large_span_engine_parity():
-    """End-to-end: a u64 column with span > 2^26 through the planned Pallas
-    path (interpret mode) stays bit-identical to the oracle."""
+    """End-to-end: a u64 column with span > 2^26 through the root metric
+    path stays bit-identical to the oracle."""
     from tantivy_aggregations_tpu import stats_agg
     schema = SchemaBuilder().add_u64_field("big").build()
     idx = Index.create_in_ram(schema)
@@ -324,11 +330,10 @@ def test_pallas_large_span_engine_parity():
     vals[0] = 2**30 + 12345
     w.add_documents_columnar({"big": vals}, 4096)
     w.commit()
-    cfg = EngineConfig(pallas_interpret=True)
-    s = idx.searcher(config=cfg)
+    s = idx.searcher()
     aggs = {"st": stats_agg("big")}
     prog = s._program_for(MatchAllQuery(), aggs)
-    assert prog._pallas_ok  # the overflow-prone path is actually planned
+    assert prog.plan[("a", "st")]["kind"] == "metric"
     got = s.agg_search(MatchAllQuery(), aggs)
     want = idx.oracle_searcher().agg_search(MatchAllQuery(), aggs)
     assert got == want

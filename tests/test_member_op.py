@@ -154,16 +154,15 @@ def test_member_op_msearch_rotation():
 
 
 def test_member_op_gather_rows_kernel():
-    """Interpret-mode coverage of the gather_rows DMA path (on the TPU
-    backend the vmapped msearch group becomes ONE multi-row copy; the
-    real-TPU lane covers the compiled lowering)."""
-    from tantivy_aggregations_tpu.engine_config import EngineConfig
+    """The member-operand row fetch is a plain lax.dynamic_slice (a
+    vmapped msearch group becomes one [B, W] row gather, which the trace
+    of bench c7 on the H100 does not show among its top device ops)."""
     idx = planeable_index()
-    s = idx.searcher(config=EngineConfig(pallas_interpret=True))
+    s = idx.searcher()
     o = idx.oracle_searcher()
     prog = s._program_for(TermQuery("weights", 42), AGGS)
     mo = prog.plan[("a", "t")]["member_op"]
-    assert mo["gr"], mo
+    assert mo and "gr" not in mo, mo
     for v in (42, 0, 99, 10**9):
         assert s.agg_search(TermQuery("weights", v), AGGS) == \
             o.agg_search(TermQuery("weights", v), AGGS)

@@ -1,11 +1,9 @@
-"""Interpret-mode coverage of the fused chain-counts Pallas path
-(ops/pallas_kernels.py chain_counts + the rank-percentile integration in
-aggs/compile.py). The CPU suite can't lower Mosaic, so these run the kernel
-under pallas interpret mode and assert bit-parity with the oracle; the
-real-TPU lane (tests/test_tpu_parity.py) covers the compiled lowering.
-
-Replaces nothing: the non-Pallas rank path keeps its own coverage via the
-default-config tests (CPU backend plans pallas_counts=False)."""
+"""Rank-percentile prefix counts: the plain XLA form (the chain mask in
+permuted value-layout space -> per-32-row counts -> int32 cumsum) that
+replaced the removed chain_counts kernel, and its rank-percentile integration
+in aggs/compile.py, bit-parity with the oracle. Same shapes, params and
+oracle checks as the kernel's tests had; use_cube=False keeps the rank
+prefix off the value-domain cube (test_cube.py covers pcube)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,35 +12,34 @@ import pytest
 
 import tantivy_aggregations_tpu as tat
 from tantivy_aggregations_tpu.engine_config import EngineConfig
-from tantivy_aggregations_tpu.ops import pallas_kernels as PK
+from tantivy_aggregations_tpu.ops import reductions as R
 
 from fixtures import random_index
 
 
 def test_chain_counts_kernel_unit():
-    R = 32768 * 2
+    R_ = 32768 * 2
     rng = np.random.default_rng(0)
-    w = rng.integers(0, 1000, R).astype(np.int32)
-    av = (rng.random(R) < 0.9).astype(np.int8)
+    w = rng.integers(0, 1000, R_).astype(np.int32)
+    av = (rng.random(R_) < 0.9).astype(np.int8)
+    wd, avd = jnp.asarray(w), jnp.asarray(av)
 
-    def mask_of(vals, pv):
-        return (vals["w"] >= pv[0]) & (vals["w"] <= pv[1]) & (vals["av"] > 0)
+    def counts(pv):
+        m = (wd >= pv[0]) & (wd <= pv[1]) & (avd > 0)
+        return jnp.cumsum(R.block32_counts(m))
 
-    cc = PK.make_chain_counts(mask_of, interpret=True)
-    planes = {"w": jnp.asarray(PK.transpose_groups(w)),
-              "av": jnp.asarray(PK.transpose_groups(av))}
-    out = cc(jnp.asarray([100, 700], jnp.int32), planes)
-    ref = ((w >= 100) & (w <= 700) & (av > 0)).reshape(-1, 128).sum(1)
-    np.testing.assert_array_equal(np.asarray(out), ref)
+    out = jax.jit(counts)(jnp.asarray([100, 700], jnp.int32))
+    ref = ((w >= 100) & (w <= 700) & (av > 0)).reshape(-1, 32).sum(1)
+    np.testing.assert_array_equal(np.asarray(out), np.cumsum(ref))
 
-    # the custom_vmap rule: one batched kernel call, planes unbatched
+    # vmapped over an msearch batch of params, planes unbatched
     pmat = jnp.asarray([[100, 700], [0, 50], [900, 999], [500, 499]],
                        jnp.int32)
-    outs = jax.jit(jax.vmap(lambda p: cc(p, planes)))(pmat)
+    outs = jax.jit(jax.vmap(counts))(pmat)
     for b in range(4):
         lo, hi = int(pmat[b, 0]), int(pmat[b, 1])
-        refb = ((w >= lo) & (w <= hi) & (av > 0)).reshape(-1, 128).sum(1)
-        np.testing.assert_array_equal(np.asarray(outs[b]), refb)
+        refb = ((w >= lo) & (w <= hi) & (av > 0)).reshape(-1, 32).sum(1)
+        np.testing.assert_array_equal(np.asarray(outs[b]), np.cumsum(refb))
 
 
 @pytest.fixture(scope="module")
@@ -52,12 +49,9 @@ def pidx():
 
 @pytest.fixture(scope="module")
 def psearch(pidx):
-    # use_cube=False: this module pins the PALLAS chain_counts path, which
-    # the value-domain cube supersedes on cube-able chains (ops/cube.py);
-    # the kernel still serves non-cube-able chains and non-integer
-    # percents. test_cube.py covers the cube's own rank-percentile path.
-    return (pidx.searcher(config=EngineConfig(pallas_interpret=True,
-                                              use_cube=False)),
+    # use_cube=False: this module pins the row-pass rank prefix, which the
+    # value-domain cube supersedes on cube-able chains (ops/cube.py).
+    return (pidx.searcher(config=EngineConfig(use_cube=False)),
             pidx.oracle_searcher())
 
 
@@ -82,15 +76,17 @@ def test_rank_percentiles_via_kernel(psearch, case):
     q, field, pc = CASES[case]
     tree = {"p": tat.percentiles_agg(field, percents=list(pc))}
     prog = s._program_for(q, tree)
-    assert prog.plan[("a", "p")].get("pallas_counts"), (q, field)
+    p = prog.plan[("a", "p")]
+    assert p["pmode"] == "rank" and p.get("pcube") is None \
+        and not p.get("mask_gather"), (q, field, p)
     assert s.agg_search(q, tree) == o.agg_search(q, tree)
 
 
 def test_cube_supersedes_kernel_on_cubeable_chains(pidx):
     """With the default config (use_cube=True), integer-percent rank
-    paths over cube-able chains plan the MXU block-histogram (pcube) and
-    the kernel stays on for the rest — both bit-identical."""
-    s = pidx.searcher(config=EngineConfig(pallas_interpret=True))
+    paths over cube-able chains plan the block-histogram cube (pcube) and
+    the row-pass prefix serves the rest — both bit-identical."""
+    s = pidx.searcher()
     o = pidx.oracle_searcher()
     for case, want_cube in [(1, True), (2, False), (3, True), (0, False)]:
         q, field, pc = CASES[case]
@@ -113,8 +109,7 @@ def test_rank_percentiles_kernel_msearch(psearch):
 
 
 def test_rank_percentiles_kernel_msearch_matchall(psearch):
-    # empty param chain: exercises _cc_vmap's unbatched-pvec broadcast
-    # branch (the dummy zeros(1) vector is constant across the batch)
+    # empty param chain: the mask is unbatched under the msearch vmap
     s, o = psearch
     for pc in ([5, 50, 95], [2.5, 50.0, 97.5]):
         reqs = [(tat.MatchAllQuery(),

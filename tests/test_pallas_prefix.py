@@ -1,12 +1,10 @@
-"""Interpret-mode coverage of the fused chain_blocks Pallas path
-(ops/pallas_kernels.py chain_blocks + the prefix-mode terms/histogram
-integration in aggs/compile.py). The CPU suite can't lower Mosaic, so
-these run the kernel under pallas interpret mode and assert bit-parity
-with the oracle; the real-TPU lane (tests/test_tpu_parity.py) covers the
-compiled lowering.
-
-The default-config CPU tests keep covering the non-Pallas prefix path
-(CPU backend plans pallas_prefix=False)."""
+"""Prefix-mode bucket totals: the plain XLA form (the chain mask
+re-evaluated in permuted layout space -> per-32-row counts and 13-bit-split
+payload sums -> cumsums gathered at the 32-unit bucket bounds) that
+replaced the chain_blocks kernel, and its terms/histogram integration in
+aggs/compile.py, bit-parity with the oracle. Same shapes, params and
+oracle checks as the kernel's tests had. PERF.md keeps the kernel's
+measurements on the H100 and why it was removed."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +13,6 @@ import pytest
 
 import tantivy_aggregations_tpu as tat
 from tantivy_aggregations_tpu.engine_config import EngineConfig
-from tantivy_aggregations_tpu.ops import pallas_kernels as PK
 from tantivy_aggregations_tpu.ops import reductions as R
 
 from fixtures import random_index
@@ -25,43 +22,42 @@ def test_chain_blocks_kernel_unit():
     rows = 32768
     rng = np.random.default_rng(3)
     w = rng.integers(-5000, 5000, rows).astype(np.int32)
-    av = (rng.random(rows) < 0.9).astype(np.int8)
+    alive = (rng.random(rows) < 0.95).astype(np.int8)
+    lvalid = (rng.random(rows) < 0.95).astype(np.int8)
+    av = (alive > 0) & (lvalid > 0)
     pay = rng.integers(-(2**26), 2**26, rows).astype(np.int32)
+    # 32-unit bucket bounds over the 1024 blocks (some buckets empty)
+    cuts = np.sort(rng.choice(np.arange(1, rows // 32), 40, replace=False))
+    bounds32 = np.concatenate([[0], cuts, [rows // 32]]).astype(np.int64)
+    wd, ad, ld, pd = (jnp.asarray(x) for x in (w, alive, lvalid, pay))
 
-    def mask_of(vals, pv):
-        return ((vals["w"] >= pv[0]) & (vals["w"] <= pv[1])
-                & (vals["avalid"] > 0))
+    def totals(pv):
+        m = (wd >= pv[0]) & (wd <= pv[1]) & (ad > 0) & (ld > 0)
+        b = jnp.asarray(bounds32)
+        return R.prefix_diff_counts(m, b), R.prefix_diff_sums(pd, m, b)
 
-    cb = PK.make_chain_blocks(mask_of, interpret=True)
-    planes = {"w": jnp.asarray(PK.transpose_groups(w, 32)),
-              "avalid": jnp.asarray(PK.transpose_groups(av, 32))}
-    payd = {"s0": jnp.asarray(PK.transpose_groups(pay, 32))}
-    counts, sums = cb(jnp.asarray([-100, 3000], jnp.int32), planes, payd)
-    m = (w >= -100) & (w <= 3000) & (av > 0)
-    np.testing.assert_array_equal(np.asarray(counts),
-                                  m.reshape(-1, 32).sum(1))
-    h, lo = sums["s0"]
-    tot = ((np.asarray(h).astype(np.int64) << 13)
-           + np.asarray(lo).astype(np.int64))
-    ref = np.where(m, pay.astype(np.int64), 0).reshape(-1, 32).sum(1)
-    np.testing.assert_array_equal(tot, ref)
+    def ref(qlo, qhi):
+        m = (w >= qlo) & (w <= qhi) & av
+        c = np.add.reduceat(m.astype(np.int64), bounds32[:-1] * 32)
+        s_ = np.add.reduceat(np.where(m, pay.astype(np.int64), 0),
+                             bounds32[:-1] * 32)
+        return c, s_
 
-    # custom_vmap: one batched kernel call over unbatched planes
+    with jax.enable_x64(True):
+        counts, sums = jax.jit(totals)(jnp.asarray([-100, 3000], jnp.int32))
+    c_ref, s_ref = ref(-100, 3000)
+    np.testing.assert_array_equal(np.asarray(counts), c_ref)
+    np.testing.assert_array_equal(np.asarray(sums), s_ref)
+
+    # vmapped over an msearch batch of params, planes unbatched
     pmat = jnp.asarray([[-100, 3000], [0, 50], [4900, 4999], [10, 9]],
                        jnp.int32)
     with jax.enable_x64(True):
-        outs_c, outs_s = jax.jit(
-            jax.vmap(lambda p: cb(p, planes, payd)))(pmat)
+        outs_c, outs_s = jax.jit(jax.vmap(totals))(pmat)
     for b in range(4):
-        qlo, qhi = int(pmat[b, 0]), int(pmat[b, 1])
-        mb = (w >= qlo) & (w <= qhi) & (av > 0)
-        np.testing.assert_array_equal(np.asarray(outs_c[b]),
-                                      mb.reshape(-1, 32).sum(1))
-        hb, lb = outs_s["s0"]
-        totb = ((np.asarray(hb[b]).astype(np.int64) << 13)
-                + np.asarray(lb[b]).astype(np.int64))
-        refb = np.where(mb, pay.astype(np.int64), 0).reshape(-1, 32).sum(1)
-        np.testing.assert_array_equal(totb, refb)
+        c_ref, s_ref = ref(int(pmat[b, 0]), int(pmat[b, 1]))
+        np.testing.assert_array_equal(np.asarray(outs_c[b]), c_ref)
+        np.testing.assert_array_equal(np.asarray(outs_s[b]), s_ref)
 
 
 @pytest.fixture(scope="module")
@@ -72,20 +68,19 @@ def pidx():
 
 @pytest.fixture(scope="module")
 def psearch(pidx):
-    # member ops off: TermQuery-on-multi chains must exercise the KERNEL
-    # here (the member operand would supersede it — covered in
+    # member ops off: TermQuery-on-multi chains must exercise the chain
+    # re-eval here (the member operand would supersede it — covered in
     # tests/test_member_op.py)
-    cfg = EngineConfig(dense_nb=8, pallas_interpret=True,
-                       use_member_ops=False)
+    cfg = EngineConfig(dense_nb=8, use_member_ops=False)
     return pidx.searcher(config=cfg), pidx.oracle_searcher()
 
 
-def _plans_pallas_prefix(searcher, query, aggs, path):
+def _plans_prefix_reeval(searcher, query, aggs, path):
     prog = searcher._program_for(query, aggs)
     p = prog.plan[path]
     assert p["mode"] == "prefix", p
-    assert p.get("pallas_prefix"), \
-        f"prefix node did not take the chain_blocks path: {p}"
+    assert not p.get("member_op") and not p.get("mask_gather"), \
+        f"prefix node did not take the permuted chain re-eval: {p}"
 
 
 CASES = [
@@ -93,7 +88,7 @@ CASES = [
     (tat.RangeQuery("qty", lower=30, upper=800),),
     (tat.TermQuery("tags", "t3"),),          # multi-valued chain field
     (tat.RangeQuery("qty", lower=10**7),),   # empty result
-    # set-type chain queries (§A.14): run-slot compares INSIDE the kernel
+    # set-type chain queries (§A.14): run-slot compares in layout space
     (tat.TermSetQuery("tags", ["t1", "t4", "t7"]),),
     (tat.TermSetQuery("qty", [5, 6, 7, 300, 301, 999]),),
     (tat.FuzzyTermQuery("cat", "cat0010", 1),),
@@ -108,7 +103,7 @@ def test_terms_prefix_pallas_parity(psearch, q):
                                sub_aggs={"s": tat.sum_agg("price"),
                                          "sq": tat.sum_agg("qty"),
                                          "n": tat.count_agg()})}
-    _plans_pallas_prefix(s, q, aggs, ("a", "t"))
+    _plans_prefix_reeval(s, q, aggs, ("a", "t"))
     assert s.agg_search(q, aggs) == o.agg_search(q, aggs)
 
 
@@ -117,25 +112,25 @@ def test_histogram_prefix_pallas_parity(psearch, q):
     s, o = psearch
     aggs = {"h": tat.histogram_agg("qty", interval=13,
                                    sub_aggs={"s": tat.sum_agg("delta")})}
-    _plans_pallas_prefix(s, q, aggs, ("a", "h"))
+    _plans_prefix_reeval(s, q, aggs, ("a", "h"))
     assert s.agg_search(q, aggs) == o.agg_search(q, aggs)
 
 
 def test_prefix_pallas_multi_payload(psearch):
     """Multi-valued payload field (per-doc preaggs: cnt plane + sum
-    planes) through the kernel's split sums."""
+    planes) through the prefix split sums."""
     s, o = psearch
     q = tat.RangeQuery("qty", lower=5, upper=950)
     aggs = {"t": tat.terms_agg("cat", size=6,
                                sub_aggs={"a": tat.avg_agg("counts"),
                                          "sc": tat.sum_agg("scores")})}
-    _plans_pallas_prefix(s, q, aggs, ("a", "t"))
+    _plans_prefix_reeval(s, q, aggs, ("a", "t"))
     assert s.agg_search(q, aggs) == o.agg_search(q, aggs)
 
 
 def test_prefix_pallas_msearch_batch(psearch):
-    """The batched (custom_vmap) lane: one plane pass for the whole
-    group, per-query results identical to the oracle."""
+    """The batched (vmapped msearch) lane: per-query results identical
+    to the oracle."""
     s, o = psearch
     aggs = {"t": tat.terms_agg("cat", size=5,
                                sub_aggs={"s": tat.sum_agg("price")}),

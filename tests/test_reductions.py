@@ -1,7 +1,7 @@
 """Unit exactness tests for ops/reductions.py primitives — especially the
-MXU triangular-matmul prefix scan (mxu_cumsum), whose correctness argument
-is a piece-decomposition proof (7-bit pieces stay exact through the
-bf16 x bf16 -> f32 MXU pipeline); these pin the extremes of that proof."""
+triangular-matmul prefix scan (mxu_cumsum), whose correctness argument is
+a piece-decomposition proof (7-bit pieces stay exact through a
+bf16 x bf16 -> f32 product); these pin the extremes of that proof."""
 
 import jax
 import jax.numpy as jnp
@@ -111,7 +111,7 @@ def test_dense_mxu_matches_onehot(rows):
 def test_bounded_piece_decomposition_exact(bound):
     """Span-derived piece counts stay bit-exact at the bound edges: values
     drawn ON the bounds (and across the whole range) through both bounded
-    MXU entry points == the unbounded/one-hot references."""
+    int8 matmul entry points == the unbounded/one-hot references."""
     rng = np.random.default_rng(abs(bound[1]) + 1)
     rows, nb = 32768, 7
     lo, hi = bound
@@ -167,7 +167,7 @@ def test_recombine_under_jit_exact():
     """Regression (round 3): this jax build (0.9.0) MISCOMPILES scalar
     shift-accumulate chains ``out = out + (x[i] << (7 * i))`` under jit
     when the chain has >= 5 shifted terms — XLA drops terms
-    data-dependently on BOTH the CPU and TPU backends (eager mode and
+    data-dependently (seen on the CPU backend; eager mode and
     numpy agree; ~3% of random cases). _recombine and cube.recombine are
     therefore written as vectorized shift-sums; this pins them under jit
     exactly as the engine's programs run them."""
@@ -208,7 +208,7 @@ def test_recombine_under_jit_exact():
 
 
 def test_masked_sum_planes_mxu_under_jit():
-    """Full-range (5-piece) MXU sums under jit — the engine's actual
+    """Full-range (5-piece) int8 matmul sums under jit — the engine's actual
     compilation mode (the eager variant above misses the jit-only XLA
     shift-chain bug)."""
     rng = np.random.default_rng(11)

@@ -21,7 +21,7 @@ from tantivy_aggregations_tpu import (
     sum_agg,
     terms_agg,
 )
-from tests.fixtures import basic_index
+from fixtures import basic_index
 
 AGGS = {"n": count_agg(), "s": sum_agg("qty")}
 
